@@ -1,101 +1,162 @@
-"""Benchmark: walled-scheme path throughput on the attached accelerator.
+"""Benchmark on the attached GPU.
 
-Prints ONE JSON line: primary-path throughput on the reference's
-headline benchmark (walled.yml, 1200x600, the scene behind its
-"1650x speedup, 8 s / 20000 spp" number -> 1.8e9 paths/s on an
-RX 6800 XT, BASELINE.md). vs_baseline is ours / reference-GPU.
+    python bench.py         # walled 1200x600 primary paths/s, one JSON line
+    python bench.py --ab    # each kernel vs the XLA formulation it replaces
+
+The default mode measures the reference's headline scene (walled.yml,
+1200x600, the scene behind its "1650x speedup, 8 s / 20000 spp" number
+-> 1.8e9 paths/s on an RX 6800 XT, BASELINE.md) through `Renderer`:
+median of BENCH_REPS renders of BENCH_SPP samples after a warm-up
+render, counter-RNG streams. `--ab` times, end to end through
+`Renderer` on one card, the fused trace kernel against the XLA
+wavefront driver on walled, and the mesh hit kernel against the XLA
+cluster cull and the XLA brute-force scan on the two procedural mesh
+scenes; its last line is the JSON of all timings. Both modes refuse
+to run without a GPU.
 """
+import argparse
+import functools
 import json
 import os
+import subprocess
 import sys
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 
 BASELINE_PATHS_PER_S = 1.8e9  # walled GPU: 1200*600*20000 / 8 s (BASELINE.md)
-
 W, H = 1200, 600
-WARMUP_SPP = 1
-# 6000 spp ~= the steady-state plateau (313 Mpaths/s on v5e vs 302 at
-# 2000, 251 at 600, 190 at 200): the ~0.6 s fixed per-render cost
-# (dispatch + final readback) must be amortized to measure device
-# throughput — the reference's own protocol is a 20000-spp run.
-BENCH_SPP = int(os.environ.get("BENCH_SPP", "6000"))
+
+
+def _gpu():
+    import jax
+
+    dev = jax.devices()[0]
+    if dev.platform != "gpu":
+        raise SystemExit(f"bench.py needs a GPU (JAX platform {dev.platform!r})")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    return dev, {"platform": dev.platform, "kind": dev.device_kind,
+                 "count": len(jax.devices()), "nvidia_smi": smi}
+
+
+def _mpaths(r, spp, reps=1):
+    """Median Mpaths/s of `reps` renders of `spp` samples (after the
+    caller's warm-up) and the individual runs."""
+    runs = []
+    for _ in range(reps):
+        t0 = time.time()
+        r.render(samples=spp, batch=spp, progress=False)
+        runs.append(r.width * r.height * spp / (time.time() - t0) / 1e6)
+    return float(np.median(runs)), runs
+
+
+def walled():
+    from __graft_entry__ import _inline_walled_scheme
+    from raytrace.render.renderer import Renderer
+
+    dev, device = _gpu()
+    spd = int(os.environ.get("BENCH_SPD", "256"))
+    spp = int(os.environ.get("BENCH_SPP", "4096"))
+    spp = max(spd, (spp // spd) * spd)
+    r = Renderer(_inline_walled_scheme(W, H, assured=5), devices=[dev],
+                 samples_per_dispatch=spd)
+    t0 = time.time()
+    r.render(samples=spd, batch=spd, progress=False)
+    compile_s = time.time() - t0
+    med, runs = _mpaths(r, spp, int(os.environ.get("BENCH_REPS", "3")))
+    print(json.dumps({
+        "metric": "walled_primary_paths_per_sec",
+        "value": med * 1e6, "unit": "paths/s",
+        "vs_baseline": med * 1e6 / BASELINE_PATHS_PER_S,
+        "driver": r.driver, "spp": spp, "samples_per_dispatch": spd,
+        "runs_mpaths": runs, "compile_and_first_dispatch_s": compile_s,
+        "rng": "counter", "device": device,
+    }))
+
+
+def _time_call(fn, reps=3):
+    fn()  # compile + warm
+    ts = []
+    for _ in range(reps):
+        t0 = time.time()
+        fn()
+        ts.append(time.time() - t0)
+    return float(np.median(ts))
+
+
+def ab():
+    from __graft_entry__ import _inline_walled_scheme
+    from raytrace.models import procedural as pr
+    from raytrace.models.scene import build_scene
+    from raytrace.ops.pallas import trace_kernel as tk
+    from raytrace.render.renderer import Renderer
+
+    dev, device = _gpu()
+    out = {"device": device, "walled": {}, "mesh": {}}
+
+    def note(section, key, value):
+        out[section][key] = value
+        print(f"{section} {key}: {value}", flush=True)
+
+    # --- walled: fused trace kernel vs XLA wavefront ------------------
+    scheme = _inline_walled_scheme(W, H, assured=5)
+    variants = {
+        "fused spd=16": Renderer(scheme, devices=[dev], driver="fused", samples_per_dispatch=16),
+        "fused spd=64": Renderer(scheme, devices=[dev], driver="fused", samples_per_dispatch=64),
+        "fused spd=64 no hints": Renderer(scheme, devices=[dev], driver="fused",
+                                          samples_per_dispatch=64),
+        "wavefront (XLA)": Renderer(scheme, devices=[dev], driver="wavefront"),
+    }
+    r = variants["fused spd=64 no hints"]
+    r._fstep = functools.partial(r._fstep.func, **{**r._fstep.keywords, "hints": tk._PERMISSIVE})
+    runs = {k: [] for k in variants}
+    for name, r in variants.items():
+        warm = r.spd if r.driver == "fused" else 1
+        t0 = time.time()
+        r.render(samples=warm, batch=warm, progress=False)
+        note("walled", name + " compile_and_first_s", time.time() - t0)
+    for _ in range(3):  # interleaved, so drift hits every variant alike
+        for name, r in variants.items():
+            runs[name].append(_mpaths(r, 256 if r.driver == "fused" else 8)[0])
+    for name, rs in runs.items():
+        note("walled", name, {"mpaths_per_s": float(np.median(rs)), "runs": rs})
+    del variants, r
+
+    # --- mesh scenes: hit kernel vs XLA cluster cull vs XLA brute -----
+    for scene_name, make in (("textured", pr.textured_scene),
+                             ("a380 surface", pr.surface_scene)):
+        scheme, meshes = make(W, H, 1)
+        scene = build_scene(scheme, meshes=meshes)
+        for hit in ("triton", "clusters", "brute"):
+            try:
+                r = Renderer(scheme, scene=scene, devices=[dev], hit=hit)
+                t0 = time.time()
+                r.render(samples=1, batch=1, progress=False)
+                first = time.time() - t0
+                med, runs = _mpaths(r, 1, 2)
+                note("mesh", f"{scene_name} {hit}", {
+                    "mpaths_per_s": med, "runs": runs, "spp": 1,
+                    "compile_and_first_s": first, "driver": r.driver})
+            except Exception as e:  # a formulation may not fit the card
+                note("mesh", f"{scene_name} {hit}", {"failed": repr(e)[:300]})
+        del scene
+
+    print(json.dumps(out))
 
 
 def main():
-    jax.config.update("jax_compilation_cache_dir", os.path.join(os.path.dirname(os.path.abspath(__file__)), ".jax_cache"))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 5.0)
-    from __graft_entry__ import _inline_walled_scheme
-    from raytrace_tpu.render.renderer import Renderer
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--ab", action="store_true", help="kernels vs XLA formulations")
+    args = ap.parse_args()
+    from raytrace.utils.cache import enable_compile_cache
 
-    # samples/lane per launch: the max-path-length drain tail and the
-    # dispatch round-trip are paid once per launch, so fewer launches
-    # win — 313.7 / 328.8 / 339.6 / 347.2 / 352.2 / 356.2 / 359.2 /
-    # 360.2 Mpaths/s at spd 32 / 64 / ... / 2048 / 6144 (round 1).
-    # Round 4 (block_cols=4 wide blocks): 571.2 / 571.4 / 578.9 /
-    # 562.3 at spd 1024 / 2048 / 3072 / 6144 — two ~6 s launches.
-    spd = int(os.environ.get("BENCH_SPD", "3072"))
-    # hardware-PRNG draws (BENCH_HW_RNG=0 for the counter RNG): same
-    # unbiased estimator, statistically identical image (golden-mean
-    # gated in tests); ~ faster on the VPU, where u32 multiplies are
-    # emulated. The reference's own per-thread PCG is equally
-    # non-reproducible across backends.
-    hw = os.environ.get("BENCH_HW_RNG", "1") == "1"
-    scheme = _inline_walled_scheme(W, H, assured=5)
-    scheme.render_info.width, scheme.render_info.height = W, H
-    r = Renderer(scheme, samples_per_dispatch=spd, hw_rng=hw)
-
-    r.render(samples=spd, batch=spd, progress=False)  # warmup/compile
-
-    bench_spp = max(spd, (BENCH_SPP // spd) * spd)
-    # median-of-3 with recorded spread (round-5 VERDICT item 6: the
-    # single-shot number moved +-10% across sessions with no protocol;
-    # deltas smaller than box variance were unreadable)
-    runs = []
-    for _ in range(int(os.environ.get("BENCH_REPS", "3"))):
-        t0 = time.time()
-        r.render(samples=bench_spp, batch=bench_spp, progress=False)
-        runs.append(W * H * bench_spp / (time.time() - t0))
-    runs.sort()
-    paths_per_s = runs[len(runs) // 2]
-    print(
-        json.dumps(
-            {
-                "metric": "walled_primary_paths_per_sec",
-                "value": round(paths_per_s, 1),
-                "unit": "paths/s",
-                "vs_baseline": round(paths_per_s / BASELINE_PATHS_PER_S, 4),
-                # which RNG produced this number (hw = TPU PRNG, not
-                # reproducible per (pixel,sample); ctr = counter PCG,
-                # bit-exact resume) — numbers are only comparable
-                # within one mode
-                "rng": "hw" if hw else "ctr",
-                "spp": bench_spp,
-                "reps": len(runs),
-                "spread_mpaths": [round(runs[0] / 1e6, 1),
-                                  round(runs[-1] / 1e6, 1)],
-                # on-hardware parity gate summary (scripts/hw_parity.py,
-                # run each round; "absent" = gate not run this round)
-                "hw_parity": _parity_summary(),
-            }
-        )
-    )
-
-
-def _parity_summary():
-    art = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                       "HW_PARITY_r05.json")
-    try:
-        with open(art) as f:
-            p = json.load(f)
-        return f"{'pass' if p['pass'] else 'FAIL'} ({p['n_pass']}/{p['n_total']})"
-    except Exception:
-        return "absent"
+    enable_compile_cache()
+    ab() if args.ab else walled()
 
 
 if __name__ == "__main__":

@@ -1,14 +1,13 @@
 // Native cluster builder: the production acceleration-structure build
-// for raytrace_tpu (models/scene.py -> accel/builder.build_clusters_bvh).
+// for raytrace (models/scene.py -> accel/builder.build_clusters_bvh).
 //
 // BVH-style clustering by recursive EXACT median partition of primitive
 // centroids along the widest axis (std::nth_element), leaves of
-// ~leaf_target primitives, no straddler duplication. This is the
-// TPU-native replacement for the reference's KD-tree build
-// (/root/reference/src/accel/kdtree.rs:26-56 and the flattened GPU
-// variant gpu_structs.rs:628-715): the traversal consumer is the
-// two-level slab-culled Pallas kernel (ops/pallas/mesh_hit_kernel.py),
-// which wants dense equal-width clusters rather than a node tree, and
+// ~leaf_target primitives, no straddler duplication. This replaces
+// the reference's KD-tree build (src/accel/kdtree.rs:
+// 26-56 and the flattened GPU variant gpu_structs.rs:628-715): the
+// traversal consumers (ops/pallas/hit_kernel.py and the XLA cluster
+// walk) want dense equal-width clusters rather than a node tree, and
 // spatial-median KD splits with straddler duplication measured ~16x
 // primitive duplication on the reference's biplane asset.
 //

@@ -1,7 +1,6 @@
 """Split-process test runner — the documented full-suite entrypoint.
 
-Round-4 VERDICT item: two independent single-process runs of the full
-suite segfaulted inside XLA `backend_compile` at ~60% (cumulative
+Two independent single-process runs of the full suite once segfaulted inside XLA `backend_compile` at ~60% (cumulative
 compile pressure on the CPU backend; every test file compiles dozens
 of large interpret-mode programs into one process). Run per-file in
 separate processes the suite is fully green, so this runner makes that

@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from raytrace_tpu.accel import build_clusters_bvh
+from raytrace.accel import build_clusters_bvh
 
 
 def _random_aabbs(n, seed=0):

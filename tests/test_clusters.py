@@ -1,6 +1,7 @@
-"""Cluster-culled mesh traversal == brute force, on a real glTF scene
-(spaceship_r1, 2097 triangles): identical RNG streams mean the culled
-and brute-force paths must produce identical radiance."""
+"""Cluster-culled mesh traversal == brute force, on the procedural
+biplane-class scene (7,316 triangles, textured, cubemap sky):
+identical RNG streams mean the culled and brute-force paths must
+produce identical radiance."""
 import os
 
 import jax.numpy as jnp
@@ -11,24 +12,19 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from raytrace_tpu.models.config import load_scheme
-from raytrace_tpu.models.camera import build_camera
-from raytrace_tpu.models.scene import build_scene
-from raytrace_tpu.render.integrator import IntegratorParams
-from raytrace_tpu.render.renderer import camera_to_arrays, sample_batch
+from raytrace.models import procedural
+from raytrace.models.camera import build_camera
+from raytrace.models.scene import build_scene
+from raytrace.render.integrator import IntegratorParams
+from raytrace.render.renderer import camera_to_arrays, sample_batch
 
-SCHEME = "/root/reference/schemes/spaceship_r1.yml"
-
-W, H = 96, 48
+W, H = 64, 32
 
 
 @pytest.fixture(scope="module")
 def setup():
-    if not os.path.exists(SCHEME):
-        pytest.skip("reference schemes unavailable")
-    scheme = load_scheme(SCHEME)
-    scheme.render_info.width, scheme.render_info.height = W, H
-    scene = build_scene(scheme)
+    scheme, meshes = procedural.textured_scene(W, H, 2, tex_size=64, sky_size=16)
+    scene = build_scene(scheme, meshes=meshes)
     cam = camera_to_arrays(build_camera(scheme.cam, W, H))
     flat = np.arange(W * H, dtype=np.int32)
     xs = jnp.asarray(flat % W)
@@ -48,8 +44,8 @@ def test_scene_has_clusters(setup):
 def test_culled_matches_brute(setup):
     scene, cam, xs, ys = setup
     base = IntegratorParams(assured_depth=3, max_bounces=8)
-    p_cull = base.replace(use_clusters=True, ray_tile=1024)
-    p_brute = base.replace(use_clusters=False)
+    p_cull = base.replace(mesh_hit="clusters", ray_tile=1024)
+    p_brute = base.replace(mesh_hit="brute")
     out_c = np.asarray(sample_batch(scene, cam, p_cull, W, H, xs, ys, jnp.int32(0), jnp.int32(2)))
     out_b = np.asarray(sample_batch(scene, cam, p_brute, W, H, xs, ys, jnp.int32(0), jnp.int32(2)))
     assert np.isfinite(out_c).all()
@@ -61,8 +57,8 @@ def test_culled_matches_brute(setup):
 def test_culled_matches_brute_cpu_mode(setup):
     scene, cam, xs, ys = setup
     base = IntegratorParams(assured_depth=3, max_bounces=8, mode="cpu")
-    p_cull = base.replace(use_clusters=True, ray_tile=1024)
-    p_brute = base.replace(use_clusters=False)
+    p_cull = base.replace(mesh_hit="clusters", ray_tile=1024)
+    p_brute = base.replace(mesh_hit="brute")
     out_c = np.asarray(sample_batch(scene, cam, p_cull, W, H, xs, ys, jnp.int32(0), jnp.int32(1)))
     out_b = np.asarray(sample_batch(scene, cam, p_brute, W, H, xs, ys, jnp.int32(0), jnp.int32(1)))
     mismatch = np.abs(out_c - out_b) / (np.abs(out_b) + 1e-3)

@@ -19,11 +19,11 @@ import os, sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from raytrace_tpu.models import config as cfg
-from raytrace_tpu.models.camera import build_camera
-from raytrace_tpu.models.scene import build_scene
-from raytrace_tpu.render.integrator import IntegratorParams
-from raytrace_tpu.render.renderer import camera_to_arrays, sample_batch
+from raytrace.models import config as cfg
+from raytrace.models.camera import build_camera
+from raytrace.models.scene import build_scene
+from raytrace.render.integrator import IntegratorParams
+from raytrace.render.renderer import camera_to_arrays, sample_batch
 
 W, H = 48, 24
 

@@ -9,14 +9,14 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from raytrace_tpu.models import config as cfg
-from raytrace_tpu.models.camera import build_camera
-from raytrace_tpu.models.scene import build_scene
-from raytrace_tpu.ops.vec import Vec3
-from raytrace_tpu.render.integrator import (
+from raytrace.models import config as cfg
+from raytrace.models.camera import build_camera
+from raytrace.models.scene import build_scene
+from raytrace.ops.vec import Vec3
+from raytrace.render.integrator import (
     DLS_NORMZE, IntegratorParams, _bounce_step,
 )
-from raytrace_tpu.render.renderer import camera_to_arrays, sample_batch
+from raytrace.render.renderer import camera_to_arrays, sample_batch
 
 W, H = 32, 16
 
@@ -161,7 +161,7 @@ def test_wavefront_dls_matches_trace_paths():
     """The wavefront driver's DLS (lookahead state in the lane pool)
     reproduces the classic driver's radiance on a cpu-mode DLS scene."""
     from functools import partial
-    from raytrace_tpu.render import wavefront as wf
+    from raytrace.render import wavefront as wf
 
     scheme = _scheme()
     scene = build_scene(scheme)
@@ -169,7 +169,9 @@ def test_wavefront_dls_matches_trace_paths():
     params = IntegratorParams(
         mode="cpu", dir_light_samp=True, assured_depth=2, max_bounces=8
     )
-    assert wf.supports(scene, params)
+    from raytrace.render.policy import choose
+
+    assert choose("cpu", scene, params).driver == "wavefront"
     flat = np.arange(W * H, dtype=np.int32)
     xs = jnp.asarray(flat % W)
     ys = jnp.asarray(flat // W)

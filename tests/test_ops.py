@@ -6,9 +6,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from raytrace_tpu.ops import bsdf, rng
-from raytrace_tpu.ops.geom import dot, normalize, reflect
-from raytrace_tpu.ops.intersect import (
+from raytrace.ops import bsdf, rng
+from raytrace.ops.geom import dot, normalize, reflect
+from raytrace.ops.intersect import (
     intersect_spheres,
     intersect_triangles,
     slab_test,

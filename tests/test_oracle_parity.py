@@ -25,9 +25,9 @@ import pytest
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from raytrace_tpu.ops import bsdf, cubemap, intersect, rng
-from raytrace_tpu.ops.vec import Vec3
-from raytrace_tpu.render.integrator import _diff_dir, _refract_dir, sample_cubemap
+from raytrace.ops import bsdf, cubemap, intersect, rng
+from raytrace.ops.vec import Vec3
+from raytrace.render.integrator import _diff_dir, _refract_dir, sample_cubemap
 
 N = 4096
 
@@ -111,11 +111,11 @@ def test_sample_cubemap_matches_cubemap_oracle():
 
 
 def test_kernel_sphere_path_matches_intersect_oracle():
-    """closest_sph_ft's unrolled sphere loop (interpret mode on CPU)
-    vs ops.intersect.intersect_spheres(mode='gpu') min-reduced."""
+    """closest_sph_ft's unrolled sphere loop (Triton-route Pallas kernel,
+    interpret mode on CPU) vs ops.intersect.intersect_spheres(mode='gpu')
+    min-reduced."""
     from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-    from raytrace_tpu.ops.pallas import trace_kernel as tk
+    from raytrace.ops.pallas import trace_kernel as tk
 
     rg = np.random.default_rng(8)
     n_sph = 5
@@ -123,20 +123,18 @@ def test_kernel_sphere_path_matches_intersect_oracle():
     centers[:, 2] -= 8.0
     radii = rg.uniform(0.5, 2.5, n_sph).astype(np.float32)
 
-    # minimal sph table rows in pack_scene_tables layout (S, 15):
-    # [c(3), r, rgb(3), em(3), has_em, kind, diffp, n_out, n_in]
-    sph_t = np.zeros((n_sph, 15), np.float32)
-    sph_t[:, 0:3] = centers
-    sph_t[:, 3] = radii
-    ft_t = np.zeros((1, 23), np.float32)
+    # minimal sph table rows in pack_scene_tables layout (S', 16):
+    # [c(3), r, rgb(3), em(3), has_em, kind, diffp, n_out, n_in, pad]
+    sph_t = np.zeros((8, 16), np.float32)
+    sph_t[:n_sph, 0:3] = centers
+    sph_t[:n_sph, 3] = radii
+    ft_t = np.zeros((1, 32), np.float32)
 
-    rows = 8
-    ro = np.zeros((rows * 128, 3), np.float32)
-    rd = _rand_units(9, rows * 128)
+    n = 1024
+    ro = np.zeros((n, 3), np.float32)
+    rd = _rand_units(9, n)
     rd[:, 2] = -np.abs(rd[:, 2]) - 0.2  # bias toward the spheres
     rd = rd / np.linalg.norm(rd, axis=-1, keepdims=True)
-
-    r2 = lambda a: jnp.asarray(a.reshape(rows, 128))
 
     def kernel(ox, oy, oz, dx, dy, dz, sph_ref, ft_ref, t_o):
         s_ = tk.closest_sph_ft(
@@ -145,24 +143,26 @@ def test_kernel_sphere_path_matches_intersect_oracle():
         )
         t_o[...] = s_["t_best"]
 
-    lane = pl.BlockSpec(memory_space=pltpu.VMEM)
-    smem = lambda a: pl.BlockSpec(a.shape, memory_space=pltpu.SMEM)
+    lane = pl.BlockSpec((tk.BLOCK,), lambda i: (i,))
+    whole = lambda a: pl.BlockSpec(a.shape, lambda i: (0, 0))
     t_kern = pl.pallas_call(
         kernel,
-        in_specs=[lane] * 6 + [smem(sph_t), smem(ft_t)],
+        grid=(n // tk.BLOCK,),
+        in_specs=[lane] * 6 + [whole(sph_t), whole(ft_t)],
         out_specs=lane,
-        out_shape=jax.ShapeDtypeStruct((rows, 128), jnp.float32),
+        out_shape=jax.ShapeDtypeStruct((n,), jnp.float32),
+        backend="triton",
         interpret=True,
     )(
-        r2(ro[:, 0]), r2(ro[:, 1]), r2(ro[:, 2]),
-        r2(rd[:, 0]), r2(rd[:, 1]), r2(rd[:, 2]),
+        *[jnp.asarray(ro[:, k]) for k in range(3)],
+        *[jnp.asarray(rd[:, k]) for k in range(3)],
         jnp.asarray(sph_t), jnp.asarray(ft_t),
     )
     t_oracle = intersect.intersect_spheres(
         jnp.asarray(ro), jnp.asarray(rd), jnp.asarray(centers),
         jnp.asarray(radii), mode="gpu",
     ).min(axis=-1)
-    got = np.asarray(t_kern).reshape(-1)
+    got = np.asarray(t_kern)
     want = np.asarray(t_oracle)
     hits = np.isfinite(want) & (want < tk.INF)  # kernel miss = MAXF-like
     got = np.where(got >= tk.INF, np.inf, got)

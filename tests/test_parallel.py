@@ -6,13 +6,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from raytrace_tpu.models import config as cfg
-from raytrace_tpu.models.camera import build_camera
-from raytrace_tpu.models.scene import build_scene
-from raytrace_tpu.parallel.distributed import make_render_step, make_train_step
-from raytrace_tpu.parallel.mesh import make_mesh
-from raytrace_tpu.render.integrator import IntegratorParams
-from raytrace_tpu.render.renderer import camera_to_arrays, sample_batch
+from raytrace.models import config as cfg
+from raytrace.models.camera import build_camera
+from raytrace.models.scene import build_scene
+from raytrace.parallel.distributed import make_render_step, make_train_step
+from raytrace.parallel.mesh import make_mesh
+from raytrace.render.integrator import IntegratorParams
+from raytrace.render.renderer import camera_to_arrays, sample_batch
 
 W, H = 64, 32
 
@@ -131,8 +131,8 @@ def test_train_step_grads(setup):
 def test_wavefront_render_step_matches_single(setup):
     """8-device spp-sharded wavefront == one wavefront over the full
     sample range (disjoint contiguous sample slices, same streams)."""
-    from raytrace_tpu.parallel.distributed import make_wavefront_render_step
-    from raytrace_tpu.render.wavefront import wavefront_batch
+    from raytrace.parallel.distributed import make_wavefront_render_step
+    from raytrace.render.wavefront import wavefront_batch
 
     scene, cam, params, x_idx, y_idx = setup
     mesh = make_mesh()
@@ -151,7 +151,7 @@ def test_renderer_multi_device_matches_single():
     with the single-device Renderer over the same total sample range
     (identical per-(pixel, sample) streams; psum order is the only
     difference)."""
-    from raytrace_tpu.render.renderer import Renderer
+    from raytrace.render.renderer import Renderer
 
     scheme = _tiny_scheme()
     r1 = Renderer(scheme, devices=jax.devices()[:1])
@@ -168,7 +168,7 @@ def test_renderer_multi_device_matches_single():
 def test_spp_sharded_step_generic():
     """make_spp_sharded_step with the plain sample-batch driver: the
     8-device psum equals the sequential sum of the 8 sample slices."""
-    from raytrace_tpu.parallel.distributed import make_spp_sharded_step
+    from raytrace.parallel.distributed import make_spp_sharded_step
     from jax.sharding import Mesh
 
     scheme = _tiny_scheme()

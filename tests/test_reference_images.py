@@ -23,14 +23,18 @@ import pytest
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from raytrace_tpu.models.config import load_scheme
-from raytrace_tpu.models.camera import build_camera
-from raytrace_tpu.models.scene import build_scene
-from raytrace_tpu.render.integrator import IntegratorParams
-from raytrace_tpu.render.renderer import camera_to_arrays, sample_batch
+from raytrace.models.config import load_scheme
+from raytrace.models.camera import build_camera
+from raytrace.models.scene import build_scene
+from raytrace.render.integrator import IntegratorParams
+from raytrace.render.renderer import camera_to_arrays, sample_batch
 
-SCHEMES = "/root/reference/schemes"
-IMAGES = "/root/reference/info/images_gpu"
+REFERENCE = os.environ.get(  # a checkout of the reference renderer
+    "RAYTRACE_REFERENCE",
+    os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "reference"),
+)
+SCHEMES = os.path.join(REFERENCE, "schemes")
+IMAGES = os.path.join(REFERENCE, "info", "images_gpu")
 
 
 def _render_clamped(scheme_name, scale, spp):

@@ -1,14 +1,13 @@
-"""Multi-device execution of the FUSED renderer branches (VERDICT
-round-3 ask 4): the spp-sharded wrappers the Renderer builds around the
-fused (trace_kernel) and mesh-fused (mesh_bounce_kernel) drivers —
-renderer.py's `_multi_step` construction and call sites — previously
-only ever ran on real multi-chip hardware, which this box does not
-have. Here they execute on the virtual 8-CPU mesh with interpret-mode
-kernels at tiny shapes and must agree with the single-device render
-(same sample-id partition -> same streams, so images agree to f32 sum
-reassociation). This includes a MESH scene through
-make_spp_sharded_step — cluster tables, texel pools, and the hybrid's
-queue machinery under shard_map replication."""
+"""Multi-device execution of the kernel renderer branches: the
+spp-sharded wrappers the Renderer builds around the fused (trace
+kernel) driver and the wavefront driver with the mesh hit kernel —
+renderer.py's `_multi_step` construction and call sites. Here they
+execute on the virtual 8-CPU mesh with interpret-mode kernels at tiny
+shapes and must agree with the single-device render (same sample-id
+partition -> same streams, so images agree to f32 sum reassociation).
+This includes a MESH scene through make_spp_sharded_step — cluster
+tables, texel pools, and the wavefront queue machinery under shard_map
+replication."""
 import os
 import sys
 
@@ -18,10 +17,10 @@ import pytest
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from raytrace_tpu.models import config as cfg
-from raytrace_tpu.models import scene as scene_mod
-from raytrace_tpu.models.gltf import LoadedMesh, Primitive
-from raytrace_tpu.render.renderer import Renderer
+from raytrace.models import config as cfg
+from raytrace.models import scene as scene_mod
+from raytrace.models.gltf import LoadedMesh, Primitive
+from raytrace.render.renderer import Renderer
 
 W, H = 32, 32  # 1024 pixels -> the minimum 1024-lane pool
 
@@ -66,24 +65,13 @@ def _mesh_scheme():
                 "coloring": cfg.Tagged("Solid", [0, 0, 0]),
                 "mat": {"divert_ray": "Diff", "emissive": [4, 4, 4]},
             }),
-            cfg.Tagged("Model", {"path": "<tiny>", "uniform_scale": 1.0,
-                                 "translation": [0, 0, 0],
-                                 "euler_angles": [0, 0, 0]}),
         ],
     }
     return cfg.parse_scheme(raw)
 
 
 def _build_mesh_scene(scheme):
-    orig_load = scene_mod.gltf_mod.load_model
-    orig_resolve = scene_mod.resolve_asset_path
-    scene_mod.gltf_mod.load_model = lambda *a, **k: [_tiny_mesh()]
-    scene_mod.resolve_asset_path = lambda p, d: p
-    try:
-        return scene_mod.build_scene(scheme)
-    finally:
-        scene_mod.gltf_mod.load_model = orig_load
-        scene_mod.resolve_asset_path = orig_resolve
+    return scene_mod.build_scene(scheme, meshes=[_tiny_mesh()])
 
 
 def _render(scheme, scene, devices, **kw):
@@ -91,41 +79,38 @@ def _render(scheme, scene, devices, **kw):
     return r, r.render(samples=8, batch=8, progress=False)
 
 
-@pytest.mark.parametrize("mxu", [True, False])
-def test_mesh_fused_multidevice_matches_single(mxu):
-    """The mesh-fused `_multi_step` branch (renderer.py) on the 8-CPU
-    mesh vs single-device — with the MXU Woop intersection and with
-    the cluster walk."""
+@pytest.mark.parametrize("hit", ["triton", "clusters"])
+def test_mesh_multidevice_matches_single(hit):
+    """The wavefront `_multi_step` branch (renderer.py) on a mesh scene,
+    8-CPU mesh vs single device — with the hit kernel (interpret mode)
+    and with the XLA cluster cull."""
     devs = jax.devices()
     assert len(devs) >= 8, "conftest must force 8 CPU devices"
     scheme = _mesh_scheme()
     scene = _build_mesh_scene(scheme)
-    assert scene.mxu_chunks > 0  # tiny mesh -> MXU table exists
-    if not mxu:
-        scene = scene.replace(mxu_chunks=0)
-    r1, img1 = _render(scheme, scene, [devs[0]], use_mesh_fused=True)
-    assert r1.use_mesh_fused and r1.n_devices == 1
-    r8, img8 = _render(scheme, scene, devs[:8], use_mesh_fused=True)
-    assert r8.use_mesh_fused and r8.n_devices == 8
+    r1, img1 = _render(scheme, scene, [devs[0]], hit=hit)
+    assert r1.driver == "wavefront" and r1.hit == hit and r1.n_devices == 1
+    r8, img8 = _render(scheme, scene, devs[:8], hit=hit)
+    assert r8.driver == "wavefront" and r8.n_devices == 8
     assert r8._mesh1d is not None and r8._multi_step is not None
     assert img1.mean() > 0.01  # actually rendered something
     np.testing.assert_allclose(img8, img1, rtol=2e-4, atol=2e-5)
 
 
 def test_fused_multidevice_matches_single():
-    """The meshless fused `_multi_step` branch (trace_kernel driver)
+    """The meshless fused `_multi_step` branch (trace kernel driver)
     on the 8-CPU mesh vs single-device."""
     from __graft_entry__ import _inline_walled_scheme
 
     devs = jax.devices()
     scheme = _inline_walled_scheme(W, H, assured=2)
-    r1 = Renderer(scheme, devices=[devs[0]], use_fused=True, interpret=True,
+    r1 = Renderer(scheme, devices=[devs[0]], driver="fused", interpret=True,
                   samples_per_dispatch=1)
-    assert r1.use_fused
+    assert r1.driver == "fused"
     img1 = r1.render(samples=8, batch=8, progress=False)
-    r8 = Renderer(scheme, devices=devs[:8], use_fused=True, interpret=True,
+    r8 = Renderer(scheme, devices=devs[:8], driver="fused", interpret=True,
                   samples_per_dispatch=1)
-    assert r8.use_fused and r8._mesh1d is not None
+    assert r8.driver == "fused" and r8._mesh1d is not None
     img8 = r8.render(samples=8, batch=8, progress=False)
     assert img1.mean() > 0.01
     np.testing.assert_allclose(img8, img1, rtol=2e-4, atol=2e-5)

@@ -15,10 +15,14 @@ import pytest
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from raytrace_tpu.models.config import load_scheme
-from raytrace_tpu.models.scene import build_scene
+from raytrace.models.config import load_scheme
+from raytrace.models.scene import build_scene
 
-SCHEMES = "/root/reference/schemes"
+REFERENCE = os.environ.get(  # a checkout of the reference renderer
+    "RAYTRACE_REFERENCE",
+    os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "reference"),
+)
+SCHEMES = os.path.join(REFERENCE, "schemes")
 
 
 def _loadable(name):
@@ -69,7 +73,7 @@ def test_scheme_builds(name):
     if scheme.render_info.animation and any(
         getattr(m, "animation", None) is not None for m in scheme.scene_members
     ):
-        from raytrace_tpu.models.animation import last_timestamp
+        from raytrace.models.animation import last_timestamp
 
         assert last_timestamp(scheme) > 0.0
 
@@ -80,14 +84,14 @@ def test_cheap_scheme_tiny_render(name):
     drivers agree (same RNG streams; accumulation order differs)."""
     if name not in LOADABLE:
         pytest.skip("assets absent from this reference snapshot")
-    from raytrace_tpu.render.renderer import Renderer
+    from raytrace.render.renderer import Renderer
 
     scheme = load_scheme(os.path.join(SCHEMES, name))
     scheme.render_info.width = 48
     scheme.render_info.height = 32
     imgs = []
-    for wf in (False, True):
-        r = Renderer(scheme, use_wavefront=wf, use_fused=False)
+    for driver in ("plain", "wavefront"):
+        r = Renderer(scheme, driver=driver)
         imgs.append(np.asarray(r.render(samples=2, batch=2, progress=False)))
     assert np.isfinite(imgs[0]).all()
     assert imgs[0].mean() > 0.0

@@ -1,11 +1,8 @@
-"""u8/u16 texel-pool storage (round 4) + the coverage-driven hybrid
-mode decisions.
+"""Integer texel-pool storage.
 
 The pools store UNDIVIDED integer source texels and consumers divide
 after the gather — results must be BIT-IDENTICAL to the all-f32 build
-(models/scene._TexPool docstring's claim, pinned here), and the
-shade / retirement / in-kernel-shade mode picks flip exactly at
-SHADE_DENSE_COVERAGE (VERDICT round-3 ask 6)."""
+(models/scene._TexPool docstring's claim, pinned here)."""
 import os
 import sys
 
@@ -14,17 +11,12 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from raytrace_tpu.models.scene import (
+from raytrace.models.scene import (
     _TexPool,
     pool_texels_to_f32,
     pool_to_f32_flat,
 )
-from raytrace_tpu.ops.texture import sample_nearest
-from raytrace_tpu.render.renderer import (
-    SHADE_DENSE_COVERAGE,
-    pick_retire_width,
-    pick_shade_width,
-)
+from raytrace.ops.texture import sample_nearest
 
 
 def test_u8_u16_division_bit_exact():
@@ -49,7 +41,7 @@ def _img(rng, h, w, dtype):
 def test_pool_dtype_policy_and_bit_equality():
     rng = np.random.default_rng(0)
 
-    # all-u8 sources -> PACKED u32 pool (one word per texel, round 5);
+    # all-u8 sources -> PACKED u32 pool (one word per texel);
     # unpacked values == f32 build bitwise
     p8, pf = _TexPool(), _TexPool()
     for _ in range(3):
@@ -97,23 +89,3 @@ def test_sample_nearest_integer_pool_bit_equal():
     out8 = np.asarray(sample_nearest(jnp.asarray(p8.finalize()), off, w, h, u, v))
     outf = np.asarray(sample_nearest(jnp.asarray(pf.finalize()), off, w, h, u, v))
     np.testing.assert_array_equal(out8.view(np.uint32), outf.view(np.uint32))
-
-
-def test_mode_decisions_at_boundary():
-    """The three coverage-gated hybrid knobs flip together at
-    SHADE_DENSE_COVERAGE (sweep-backed, SWEEP_SHADE_r04.json): at or
-    below -> pool//4 deferral, dense retirement, XLA shade; above ->
-    dense shade, 5*pool//8 compacted retirement, in-kernel shade."""
-    pool = 1 << 17
-    eps = 1e-6
-    at, above = SHADE_DENSE_COVERAGE, SHADE_DENSE_COVERAGE + eps
-    assert pick_shade_width(at, pool) == pool // 4
-    assert pick_shade_width(above, pool) == pool
-    assert pick_retire_width(at, pool) == 0
-    assert pick_retire_width(above, pool) == 5 * pool // 8
-    # the sweep anchors (BENCH_NOTES round 4): defer wins at 0.21,
-    # dense wins at 0.58 — the threshold must separate them
-    assert pick_shade_width(0.21, pool) == pool // 4
-    assert pick_shade_width(0.58, pool) == pool
-    assert pick_retire_width(0.21, pool) == 0
-    assert pick_retire_width(0.58, pool) > 0

@@ -10,15 +10,14 @@ import pytest
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from raytrace_tpu.models import config as cfg
-from raytrace_tpu.models.config import load_scheme
-from raytrace_tpu.models.camera import build_camera
-from raytrace_tpu.models.scene import build_scene
-from raytrace_tpu.render.integrator import IntegratorParams
-from raytrace_tpu.render.renderer import camera_to_arrays, sample_batch
-from raytrace_tpu.render.wavefront import wavefront_batch
+from raytrace.models import config as cfg
+from raytrace.models import procedural
+from raytrace.models.camera import build_camera
+from raytrace.models.scene import build_scene
+from raytrace.render.integrator import IntegratorParams
+from raytrace.render.renderer import camera_to_arrays, sample_batch
+from raytrace.render.wavefront import wavefront_batch
 
-SCHEMES = "/root/reference/schemes"
 W, H = 48, 24
 
 
@@ -52,9 +51,9 @@ def _sphere_scheme():
     return cfg.parse_scheme(raw)
 
 
-def _compare(scheme, params, n_samples=4, pool=256, wh=(W, H)):
+def _compare(scheme, params, n_samples=4, pool=256, wh=(W, H), meshes=None):
     w, h = wh
-    scene = build_scene(scheme)
+    scene = build_scene(scheme, meshes=meshes)
     cam = camera_to_arrays(build_camera(scheme.cam, w, h))
     flat = np.arange(w * h, dtype=np.int32)
     xs = jnp.asarray(flat % w)
@@ -94,15 +93,16 @@ def test_wavefront_cpu_mode():
     np.testing.assert_allclose(out, ref, rtol=1e-4, atol=1e-4)
 
 
+def _textured(w, h):
+    """Procedural biplane-class scene: textured mesh under a cubemap."""
+    return procedural.textured_scene(w, h, 2, tex_size=64, sky_size=16)
+
+
 def test_wavefront_mesh_scene_with_cubemap():
-    path = os.path.join(SCHEMES, "spaceship_r1.yml")
-    if not os.path.exists(path):
-        pytest.skip("reference schemes unavailable")
     w, h = 64, 32
-    scheme = load_scheme(path)
-    scheme.render_info.width, scheme.render_info.height = w, h
+    scheme, meshes = _textured(w, h)
     params = IntegratorParams(assured_depth=3, max_bounces=6, mode="gpu")
-    ref, out = _compare(scheme, params, n_samples=2, pool=512, wh=(w, h))
+    ref, out = _compare(scheme, params, n_samples=2, meshes=meshes, pool=512, wh=(w, h))
     bad = ~np.isclose(out, ref, rtol=1e-3, atol=1e-3)
     assert bad.mean() < 0.002, f"mismatch frac {bad.mean()}, max {np.abs(out - ref).max()}"
     assert np.isfinite(out).all()
@@ -118,14 +118,10 @@ def test_wavefront_debug_single_ray():
 def test_wavefront_large_pool_tiled_paths():
     """pool > 8192 exercises the tile-cond mesh-attr and cubemap-resolve
     branches; results must still match the classic loop."""
-    path = os.path.join(SCHEMES, "spaceship_r1.yml")
-    if not os.path.exists(path):
-        pytest.skip("reference schemes unavailable")
     w, h = 64, 32
-    scheme = load_scheme(path)
-    scheme.render_info.width, scheme.render_info.height = w, h
+    scheme, meshes = _textured(w, h)
     params = IntegratorParams(assured_depth=3, max_bounces=6, mode="gpu")
-    ref, out = _compare(scheme, params, n_samples=2, pool=16384, wh=(w, h))
+    ref, out = _compare(scheme, params, n_samples=2, meshes=meshes, pool=16384, wh=(w, h))
     # different fusion shapes perturb interpolated uvs by ~1 ulp, which
     # flips a handful of nearest-neighbor texel picks — allow a few
     # discrete per-pixel jumps but require distribution-level agreement
@@ -136,14 +132,10 @@ def test_wavefront_large_pool_tiled_paths():
 
 def test_wavefront_compaction_path():
     """pool >= 32768 exercises the mesh-shading compaction branch."""
-    path = os.path.join(SCHEMES, "spaceship_r1.yml")
-    if not os.path.exists(path):
-        pytest.skip("reference schemes unavailable")
     w, h = 64, 32
-    scheme = load_scheme(path)
-    scheme.render_info.width, scheme.render_info.height = w, h
+    scheme, meshes = _textured(w, h)
     params = IntegratorParams(assured_depth=3, max_bounces=6, mode="gpu")
-    ref, out = _compare(scheme, params, n_samples=2, pool=32768, wh=(w, h))
+    ref, out = _compare(scheme, params, n_samples=2, meshes=meshes, pool=32768, wh=(w, h))
     bad = ~np.isclose(out, ref, rtol=1e-3, atol=1e-3)
     assert bad.mean() < 0.01, f"mismatch frac {bad.mean()}, max {np.abs(out - ref).max()}"
     np.testing.assert_allclose(out.mean(0), ref.mean(0), rtol=1e-3)
